@@ -15,9 +15,9 @@ replicas and recovers both modes with their correct weights.
 import jax
 import numpy as np
 
-from sxmc_tpu.mcmc.metropolis import MCMC
-from sxmc_tpu.mcmc.tempered import TemperedMCMC
-from sxmc_tpu.signal import Observable, Signal, Source, Systematic
+from sxmc_jax.mcmc.metropolis import MCMC
+from sxmc_jax.mcmc.tempered import TemperedMCMC
+from sxmc_jax.signal import Observable, Signal, Source, Systematic
 
 
 def build():

@@ -32,10 +32,10 @@ if "--cpu" in sys.argv:
 import jax
 import numpy as np
 
-from sxmc_tpu.generator import make_fake_dataset
-from sxmc_tpu.signal import Observable, Signal, Source
-from sxmc_tpu.stats.hypotest import HypoTest
-from sxmc_tpu.stats.mle import MLE
+from sxmc_jax.generator import make_fake_dataset
+from sxmc_jax.signal import Observable, Signal, Source
+from sxmc_jax.stats.hypotest import HypoTest
+from sxmc_jax.stats.mle import MLE
 
 
 def main():

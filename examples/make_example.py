@@ -4,7 +4,7 @@ Creates the analog of the reference's config/example.json setup with
 synthetic data, runnable out of the box:
 
     python examples/make_example.py workdir/
-    python -m sxmc_tpu.cli workdir/example.json workdir/out/
+    python -m sxmc_jax.cli workdir/example.json workdir/out/
 """
 
 import json
@@ -32,7 +32,7 @@ def main(outdir: str = "example_workdir") -> str:
     sig2 = np.stack([e2, mc_e2, rng.uniform(0, 10, n).astype(np.float32)],
                     axis=1)
 
-    from sxmc_tpu.io import loaders
+    from sxmc_jax.io import loaders
 
     loaders.write_float_table(os.path.join(outdir, "signal1.npz"),
                               sig1, fields)

@@ -4,10 +4,10 @@ Usage: python multihost_worker.py <process_id> <num_processes>
            <coordinator or "-"> <outdir>
 
 Each process runs the multi-host ensemble driver
-(sxmc_tpu.parallel.multihost) on a small synthetic fit and writes its
+(sxmc_jax.parallel.multihost) on a small synthetic fit and writes its
 gathered limits to ``limits_<pid>.json``.  The analog of the
 reference's CPU-fallback testing (SURVEY.md section 4): the identical
-code paths, on a multi-process CPU backend instead of multi-host TPU.
+code paths, on a multi-process CPU backend instead of several hosts.
 """
 
 import json
@@ -22,7 +22,7 @@ def make_fixture():
     """Tiny two-signal fit; fixed (non-Poisson) event counts so every
     process-count produces identically shaped datasets (padding is the
     only shape-dependent input to the chain)."""
-    from sxmc_tpu.signal import Observable, Signal, Source
+    from sxmc_jax.signal import Observable, Signal, Source
 
     rng = np.random.default_rng(7)
     obs = Observable(name="energy", field="energy", bins=20, lower=5.0,
@@ -54,7 +54,7 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
 
-    from sxmc_tpu.parallel import mesh as mesh_lib
+    from sxmc_jax.parallel import mesh as mesh_lib
 
     if nproc > 1:
         ok = mesh_lib.initialize_distributed(
@@ -65,7 +65,7 @@ def main():
         assert mesh_lib.process_local_experiments(4) == \
             ([0, 1] if pid == 0 else [2, 3])
 
-    from sxmc_tpu.parallel.multihost import run_multihost_ensemble
+    from sxmc_jax.parallel.multihost import run_multihost_ensemble
 
     fc = make_fixture()
     lspaces, limits = run_multihost_ensemble(fc, verbose=True,

@@ -1,7 +1,7 @@
 """3-D fits: the reference's dimensional ceiling, exceeded.
 
 The reference's histogram export and sampling stop at 3-D
-(pdfz.cpp:498-594, 817-922 handle TH1/2/3 only); the TPU build is
+(pdfz.cpp:498-594, 817-922 handle TH1/2/3 only); this build is
 rank-generic.  These tests pin 3-D end-to-end (the reference's max) and
 4-D construction (beyond it).
 """
@@ -9,11 +9,11 @@ rank-generic.  These tests pin 3-D end-to-end (the reference's max) and
 import numpy as np
 import jax
 
-from sxmc_tpu.generator import make_fake_dataset
-from sxmc_tpu.mcmc.metropolis import MCMC
-from sxmc_tpu.ops import histogram as hist_ops
-from sxmc_tpu.pdf.evalhist import EvalHist
-from sxmc_tpu.signal import Observable, Signal, Source
+from sxmc_jax.generator import make_fake_dataset
+from sxmc_jax.mcmc.metropolis import MCMC
+from sxmc_jax.ops import histogram as hist_ops
+from sxmc_jax.pdf.evalhist import EvalHist
+from sxmc_jax.signal import Observable, Signal, Source
 
 
 def make_3d_fixture(n=40000, seed=2):

@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sxmc_tpu.ops.histogram import compute_bin_ids
-from sxmc_tpu.ops.nll import NLLStatic, nll
-from sxmc_tpu.signal import Observable, Signal, Source
-from sxmc_tpu.stats.asimov import asimov_dataset, bin_centers
-from sxmc_tpu.stats.hypotest import HypoTest
-from sxmc_tpu.stats.mle import MLE
+from sxmc_jax.ops.histogram import compute_bin_ids
+from sxmc_jax.ops.nll import NLLStatic, nll
+from sxmc_jax.signal import Observable, Signal, Source
+from sxmc_jax.stats.asimov import asimov_dataset, bin_centers
+from sxmc_jax.stats.hypotest import HypoTest
+from sxmc_jax.stats.mle import MLE
 
 
 @pytest.fixture(scope="module")
@@ -183,7 +183,7 @@ class TestConstrainedPOIWarning:
         obs, sources, signals = model
         import copy
 
-        from sxmc_tpu.signal import Source
+        from sxmc_jax.signal import Source
 
         src_s = Source(name="sig", index=0, mean=1.0, sigma=0.1)
         sigs = [copy.copy(signals[0]), signals[1]]

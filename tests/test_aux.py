@@ -7,12 +7,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from sxmc_tpu.pdf.evalkde import EvalKDE
-from sxmc_tpu.ops.transforms import SHIFT, SystematicDesc
-from sxmc_tpu import checkpoint
-from sxmc_tpu.generator import make_fake_dataset
-from sxmc_tpu.mcmc.metropolis import MCMC
-from sxmc_tpu.observability import MetricsLogger, Stopwatch, plot_traces
+from sxmc_jax.pdf.evalkde import EvalKDE
+from sxmc_jax.ops.transforms import SHIFT, SystematicDesc
+from sxmc_jax import checkpoint
+from sxmc_jax.generator import make_fake_dataset
+from sxmc_jax.mcmc.metropolis import MCMC
+from sxmc_jax.observability import MetricsLogger, Stopwatch, plot_traces
 from tests.test_mcmc import make_fixture
 
 
@@ -95,7 +95,7 @@ class TestCheckpoint:
         assert abs(m1 - m2) < 5 * s1
 
     def test_hmc_resume_reproduces_uninterrupted_run(self, tmp_path):
-        from sxmc_tpu.mcmc.hmc import HMC
+        from sxmc_jax.mcmc.hmc import HMC
 
         obs, systs, sources, signals = make_fixture()
         data = make_fake_dataset(jax.random.PRNGKey(4), signals, systs,
@@ -127,7 +127,7 @@ class TestCheckpoint:
         assert np.isfinite(ls2.nll_values).all()
 
     def test_nuts_checkpoint_resume(self, tmp_path):
-        from sxmc_tpu.mcmc.nuts import NUTS
+        from sxmc_jax.mcmc.nuts import NUTS
 
         obs, systs, sources, signals = make_fixture()
         data = make_fake_dataset(jax.random.PRNGKey(4), signals, systs,
@@ -147,7 +147,7 @@ class TestCheckpoint:
         assert np.isfinite(ls.nll_values).all()
 
     def test_stretch_checkpoint_resume(self, tmp_path):
-        from sxmc_tpu.mcmc.stretch import StretchSampler
+        from sxmc_jax.mcmc.stretch import StretchSampler
 
         obs, systs, sources, signals = make_fixture()
         data = make_fake_dataset(jax.random.PRNGKey(4), signals, systs,
@@ -203,7 +203,7 @@ class TestObservability:
         assert sw.real_time() >= 0
 
     def test_plot_traces(self, tmp_path):
-        from sxmc_tpu.stats.likelihood import LikelihoodSpace
+        from sxmc_jax.stats.likelihood import LikelihoodSpace
 
         rng = np.random.default_rng(0)
         ls = LikelihoodSpace(rng.normal(size=(500, 2)).astype(np.float32),
@@ -213,7 +213,7 @@ class TestObservability:
         assert os.path.exists(out)
 
     def test_plot_cls_scan(self, tmp_path):
-        from sxmc_tpu.plots import plot_cls_scan
+        from sxmc_jax.plots import plot_cls_scan
 
         grid = np.linspace(0.05, 1.0, 9)
         cls_vals = np.array([1.0, 0.82, 0.4, 0.12, 0.053, 0.02,
@@ -230,8 +230,8 @@ class TestObservability:
 
 class TestPosterior2DPlot:
     def test_writes_file_and_contours(self, tmp_path):
-        from sxmc_tpu.plots import plot_posterior2d
-        from sxmc_tpu.stats.likelihood import LikelihoodSpace
+        from sxmc_jax.plots import plot_posterior2d
+        from sxmc_jax.stats.likelihood import LikelihoodSpace
 
         rng = np.random.default_rng(0)
         n = 20000

@@ -4,9 +4,9 @@ import jax
 import numpy as np
 import pytest
 
-from sxmc_tpu.signal import Observable, Signal, Source
-from sxmc_tpu.stats.bias import PullStudy, pull_study
-from sxmc_tpu.stats.mle import MLE
+from sxmc_jax.signal import Observable, Signal, Source
+from sxmc_jax.stats.bias import PullStudy, pull_study
+from sxmc_jax.stats.mle import MLE
 
 
 @pytest.fixture(scope="module")
@@ -105,7 +105,7 @@ class TestCLIBias:
         cfg.write_text(json.dumps(conf))
         outdir = tmp_path / "out"
 
-        from sxmc_tpu.cli import main
+        from sxmc_jax.cli import main
         assert main([str(cfg), str(outdir), "--sampler", "mle",
                      "--bias-study", "40"]) == 0
         out = capsys.readouterr().out
@@ -124,7 +124,7 @@ class TestPullPlot:
         obs, sources, signals = model
         mle = MLE(sources, signals, [], [obs])
         ps = pull_study(mle, 40, jax.random.PRNGKey(9))
-        from sxmc_tpu.plots import plot_pulls
+        from sxmc_jax.plots import plot_pulls
 
         out = tmp_path / "pulls.png"
         plot_pulls(ps, str(out))

@@ -9,10 +9,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sxmc_tpu.parallel.bin_sharded import (
+from sxmc_jax.parallel.bin_sharded import (
     bin_sharded_eval, bin_sharded_histograms, make_bin_mesh)
-from sxmc_tpu.pdf.stack import PdfStack
-from sxmc_tpu.signal import Observable, Signal, Source, Systematic
+from sxmc_jax.pdf.stack import PdfStack
+from sxmc_jax.signal import Observable, Signal, Source, Systematic
 
 FIELDS = ["energy", "DATASET"]
 

@@ -6,7 +6,7 @@ These tests pin that identity against the event-wise path
 (ops/nll.nll_pair) across datasets, systematics, sentinels and
 weighted (Asimov) data.  The reference has no binned mode — its LUT
 walk is always per-event (pdfz.cpp:411-436) — so the binned path is a
-pure TPU-side speedup with no semantic delta to validate against C++.
+pure speedup with no semantic delta to validate against C++.
 """
 
 import numpy as np
@@ -14,10 +14,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from sxmc_tpu.mcmc.metropolis import MCMC
-from sxmc_tpu.ops.nll import NLLStatic, BARRIER, binned_nll, nll
-from sxmc_tpu.pdf.stack import PdfStack
-from sxmc_tpu.signal import Observable, Signal, Source, Systematic
+from sxmc_jax.mcmc.metropolis import MCMC
+from sxmc_jax.ops.nll import NLLStatic, BARRIER, binned_nll, nll
+from sxmc_jax.pdf.stack import PdfStack
+from sxmc_jax.signal import Observable, Signal, Source, Systematic
 
 
 def make_fixture(with_systematic=True, seed=3):
@@ -240,7 +240,7 @@ class TestBinnedSampler:
 
 class TestBinnedMLE:
     def test_fit_matches_unbinned(self):
-        from sxmc_tpu.stats.mle import MLE
+        from sxmc_jax.stats.mle import MLE
 
         rng = np.random.default_rng(21)
         obs = Observable(name="energy", field="energy", bins=20,
@@ -280,7 +280,7 @@ class TestBinnedMLE:
 
 class TestBinnedHMC:
     def test_hmc_binned_runs(self):
-        from sxmc_tpu.mcmc.hmc import HMC
+        from sxmc_jax.mcmc.hmc import HMC
 
         rng = np.random.default_rng(8)
         obs = Observable(name="energy", field="energy", bins=20,

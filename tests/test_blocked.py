@@ -16,11 +16,11 @@ rate-block updates that reuse the carried LUT.  These tests pin:
 import jax
 import numpy as np
 
-from sxmc_tpu.generator import make_fake_dataset
-from sxmc_tpu.mcmc import metropolis
-from sxmc_tpu.mcmc.metropolis import MCMC
-from sxmc_tpu.ops.nll import nll as nll_fn
-from sxmc_tpu.signal import Observable, Signal, Source, Systematic
+from sxmc_jax.generator import make_fake_dataset
+from sxmc_jax.mcmc import metropolis
+from sxmc_jax.mcmc.metropolis import MCMC
+from sxmc_jax.ops.nll import nll as nll_fn
+from sxmc_jax.signal import Observable, Signal, Source, Systematic
 
 
 def make_fixture(seed=1, n_mc=20000):
@@ -155,7 +155,7 @@ class TestBlockedPosterior:
 
 class TestBlockedCheckpoint:
     def test_kill_and_resume(self, tmp_path):
-        from sxmc_tpu import checkpoint as ckpt_mod
+        from sxmc_jax import checkpoint as ckpt_mod
 
         obs, systs, sources, signals = make_fixture()
         data = make_fake_dataset(jax.random.PRNGKey(4), signals, systs,

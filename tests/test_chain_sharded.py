@@ -4,9 +4,9 @@ import numpy as np
 import jax
 import pytest
 
-from sxmc_tpu.generator import make_fake_dataset
-from sxmc_tpu.mcmc.metropolis import MCMC
-from sxmc_tpu.parallel.chain_sharded import run_sharded_chain
+from sxmc_jax.generator import make_fake_dataset
+from sxmc_jax.mcmc.metropolis import MCMC
+from sxmc_jax.parallel.chain_sharded import run_sharded_chain
 from tests.test_mcmc import make_fixture
 
 
@@ -28,34 +28,24 @@ class TestShardedChain:
             assert abs(m_ref - m_sh) < 5 * s_ref / np.sqrt(50), \
                 (name, m_ref, m_sh)
 
-    def test_pallas_body_under_shard_map(self):
-        """The production per-segment Pallas kernel runs INSIDE the
-        shard_map body (interpret mode on the 8-device CPU mesh): the
-        psum of per-shard kernel builds must equal the unsharded
-        kernel build exactly (integer counts), and the sharded fit
-        must produce a sane posterior."""
+    def test_shard_builds_sum_to_stack_histograms(self):
+        """Per-shard bincounts of slices of the MC samples, psummed over
+        the 8-device event mesh, equal the stack's single-device build
+        exactly (integer counts), and the sharded fit is sane."""
         import jax.numpy as jnp
         from jax.sharding import Mesh, PartitionSpec as P
 
-        from sxmc_tpu.pdf.stack import force_pallas_interpret
+        from sxmc_jax.ops import histogram as hist_ops
+        from sxmc_jax.pdf.stack import _apply_masked_systematics
 
         obs, systs, sources, signals = make_fixture(
             with_systematic=True, seed=7)
         data = make_fake_dataset(jax.random.PRNGKey(4), signals, systs,
                                  [obs], poisson=False)
-        with force_pallas_interpret():
-            mcmc = MCMC(sources, signals, systs, [obs])
+        mcmc = MCMC(sources, signals, systs, [obs])
         stack = mcmc.stack
-        assert stack.use_pallas and stack._per_segment
-        mcmc.stack.set_data(np.asarray(data, np.float32))
-
-        # Exact equality: sharded psum of per-shard kernel builds ==
-        # the single-kernel build over all samples.
         theta = jnp.asarray([0.07], jnp.float32)
-        want, want_norms = stack.histograms(theta)
-
-        from sxmc_tpu.parallel import chain_sharded as cs
-        import sxmc_tpu.parallel.chain_sharded  # noqa: F401
+        want, _ = stack.histograms(theta)
 
         ls = run_sharded_chain(mcmc, data, nsteps=1500,
                                burnin_fraction=0.2, seed=3)
@@ -63,81 +53,30 @@ class TestShardedChain:
         assert np.isfinite(ls.nll_values).all()
         assert abs(bf["sig"].point_estimate - 1.0) < 0.5
 
-        # Direct check of the sharded build path: rebuild the
-        # chain_sharded host packing and run one psum'd build.  Both
-        # signals carry the systematic here so dyn == global numbering
-        # (the mixed case is covered by the fit above).
-        from sxmc_tpu.signal import Signal, Source
-
-        rng = np.random.default_rng(13)
-        src_s = Source(name="s", index=0, mean=1.0)
-        src_b = Source(name="b", index=1, mean=1.0, sigma=0.1)
-        mc1 = rng.normal(10, 1, (9000, 1)).astype(np.float32)
-        mc2 = rng.uniform(5, 15, (7000, 1)).astype(np.float32)
-        s1 = Signal.from_table("s", "S", mc1, ["energy"], 0, src_s,
-                               200.0, ["energy", "DATASET"], [obs], [],
-                               systs)
-        s2 = Signal.from_table("b", "B", mc2, ["energy"], 0, src_b,
-                               400.0, ["energy", "DATASET"], [obs], [],
-                               systs)
-        from sxmc_tpu.pdf.stack import PdfStack
-        with force_pallas_interpret():
-            stack = PdfStack([s1, s2], [obs], systs)
-        assert stack._ndyn == stack.nsignals
-        want, want_norms = stack.histograms(theta)
-
         ndev = len(jax.devices())
         mesh = Mesh(np.asarray(jax.devices()), axis_names=("event",))
-        from sxmc_tpu.ops import pallas_hist
-
         samples = stack.samples_host
         seg = stack.segment_ids_host
         n = samples.shape[0]
-        npad = -(-n // (ndev * 8)) * (ndev * 8)
+        npad = -(-n // ndev) * ndev
         samples_p = np.concatenate([samples, np.full(
             (npad - n, samples.shape[1]), stack.lower_host[0] - 1e9,
             np.float32)])
         seg_p = np.concatenate([seg, np.zeros(npad - n, np.int32)])
-        shard_n = npad // ndev
-        pks, css = [], []
-        for d in range(ndev):
-            sl = slice(d * shard_n, (d + 1) * shard_n)
-            pk, c = pallas_hist.pack_samples_per_segment(
-                samples_p[sl], stack.lower_host, seg_p[sl],
-                stack.nsignals, chunk=stack._seg_chunk)
-            pks.append(pk)
-            css.append(c)
-        mx = max(c.shape[1] for c in css)
-        for d in range(ndev):
-            nc = css[d].shape[1]
-            if nc < mx:
-                extra = (mx - nc) * stack._seg_chunk
-                pks[d] = np.concatenate([pks[d], np.full(
-                    (pks[d].shape[0], extra // 128, 128),
-                    stack.lower_host[0] - 1e9, np.float32)], axis=1)
-                css[d] = np.concatenate(
-                    [css[d], np.zeros((1, mx - nc), np.int32)], axis=1)
 
-        def body(packed_l, chunkseg_l):
-            flat = pallas_hist.pallas_histogram_segmented(
-                packed_l[0], chunkseg_l[0], stack._mask_matrix, theta,
-                nfields=stack.nfields, nobs=1,
-                systematics=stack._pallas_systs,
-                lower=stack.lower_host, upper=stack.upper_host,
-                nbins=stack.nbins, nsegments=stack.nsignals,
-                chunk=stack._seg_chunk, interpret=True)
-            return jax.lax.psum(
-                flat.reshape(stack.nsignals, stack.total_nbins),
-                "event")
+        def body(samples_l, seg_l):
+            t = _apply_masked_systematics(samples_l, seg_l, theta,
+                                          stack.systematics,
+                                          stack.nsignals)
+            h, _ = hist_ops.segmented_histogram(
+                t[:, :1], seg_l, jnp.ones(samples_l.shape[0], bool),
+                stack.lower, stack.upper, stack.nbins, stack.nsignals)
+            return jax.lax.psum(h, "event")
 
         with mesh:
             got = jax.shard_map(
-                body, mesh=mesh,
-                in_specs=(P("event", None, None, None),
-                          P("event", None, None)),
-                out_specs=P(), check_vma=False)(
-                    jnp.asarray(np.stack(pks)),
-                    jnp.asarray(np.stack(css)))
+                body, mesh=mesh, in_specs=(P("event"), P("event")),
+                out_specs=P())(jnp.asarray(samples_p), jnp.asarray(seg_p))
         np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
     def test_floating_systematics_sharded(self):

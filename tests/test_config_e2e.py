@@ -12,8 +12,8 @@ import os
 import numpy as np
 import pytest
 
-from sxmc_tpu.fitconfig import FitConfig, strip_json_comments
-from sxmc_tpu.io import loaders
+from sxmc_jax.fitconfig import FitConfig, strip_json_comments
+from sxmc_jax.io import loaders
 
 
 @pytest.fixture
@@ -168,12 +168,12 @@ class TestEndToEnd:
         cfg_file.write_text(json.dumps(conf))
         outdir = tmp_path / "out"
 
-        from sxmc_tpu.cli import main
+        from sxmc_jax.cli import main
         assert main([str(cfg_file), str(outdir)]) == 0
         out = capsys.readouterr().out
         assert "Best fit" in out
         assert "Median upper limit" in out
-        assert (outdir / "lspace_0.hdf5").exists()
+        assert (outdir / "lspace_0.npz").exists()
 
     def test_cli_hypotest(self, mc_files, tmp_path, capsys):
         """--hypotest reports q0 + a CLs limit on fit.signal_name and
@@ -183,7 +183,7 @@ class TestEndToEnd:
         cfg_file.write_text(json.dumps(conf))
         outdir = tmp_path / "out"
 
-        from sxmc_tpu.cli import main
+        from sxmc_jax.cli import main
         assert main([str(cfg_file), str(outdir),
                      "--sampler", "mle", "--hypotest", "20"]) == 0
         out = capsys.readouterr().out
@@ -210,7 +210,7 @@ class TestEndToEnd:
         cfg_file.write_text(json.dumps(conf))
         outdir = tmp_path / "out"
 
-        from sxmc_tpu.cli import main
+        from sxmc_jax.cli import main
         assert main([str(cfg_file), str(outdir),
                      "--sampler", "mle", "--hypotest-asymptotic"]) == 0
         out = capsys.readouterr().out
@@ -231,7 +231,7 @@ class TestEndToEnd:
         cfg_file.write_text(json.dumps(conf))
         outdir = tmp_path / "out"
 
-        from sxmc_tpu.cli import main
+        from sxmc_jax.cli import main
         assert main([str(cfg_file), str(outdir), "--gof", "30",
                      "--rate-substeps", "3"]) == 0
         out = capsys.readouterr().out
@@ -257,14 +257,14 @@ class TestEndToEnd:
         cfg_file.write_text(json.dumps(conf))
         outdir = tmp_path / "out"
 
-        from sxmc_tpu.ensemble import main_fit
+        from sxmc_jax.ensemble import main_fit
         main_fit(str(cfg_file), str(outdir))
 
         # fit.samples: recompute intervals from the stored samples,
         # skipping the MCMC (sxmc.cpp:84-94, config.cpp:51).
         conf2 = example_config(
             mc_files, nsteps=2000,
-            samples=str(outdir / "lspace_0.hdf5"))
+            samples=str(outdir / "lspace_0.npz"))
         cfg2 = tmp_path / "fit2.json"
         cfg2.write_text(json.dumps(conf2))
         limits = main_fit(str(cfg2), str(tmp_path / "out2"))

@@ -11,11 +11,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from sxmc_tpu.generator import make_fake_dataset
-from sxmc_tpu.mcmc import metropolis
-from sxmc_tpu.mcmc.metropolis import MCMC
-from sxmc_tpu.parallel.ensemble import pad_datasets
-from sxmc_tpu.stats.likelihood import LikelihoodSpace
+from sxmc_jax.generator import make_fake_dataset
+from sxmc_jax.mcmc import metropolis
+from sxmc_jax.mcmc.metropolis import MCMC
+from sxmc_jax.parallel.ensemble import pad_datasets
+from sxmc_jax.stats.likelihood import LikelihoodSpace
 from tests.test_mcmc import make_fixture
 
 

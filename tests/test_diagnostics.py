@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from sxmc_tpu.ops.nll import NLLStatic, nll
-from sxmc_tpu.stats.diagnostics import ess, split_rhat, summarize
-from sxmc_tpu.mcmc.metropolis import MCMC
-from sxmc_tpu.mcmc.nuts import NUTS
-from sxmc_tpu.signal import Observable, Signal, Source
+from sxmc_jax.ops.nll import NLLStatic, nll
+from sxmc_jax.stats.diagnostics import ess, split_rhat, summarize
+from sxmc_jax.mcmc.metropolis import MCMC
+from sxmc_jax.mcmc.nuts import NUTS
+from sxmc_jax.signal import Observable, Signal, Source
 
 
 class TestDiagnostics:

@@ -11,11 +11,11 @@ import numpy as np
 import jax
 import pytest
 
-from sxmc_tpu.fitconfig import FitConfig
-from sxmc_tpu.generator import make_fake_dataset
-from sxmc_tpu.io import loaders
-from sxmc_tpu.mcmc.metropolis import MCMC
-from sxmc_tpu.signal import Observable, Signal, Source, Systematic
+from sxmc_jax.fitconfig import FitConfig
+from sxmc_jax.generator import make_fake_dataset
+from sxmc_jax.io import loaders
+from sxmc_jax.mcmc.metropolis import MCMC
+from sxmc_jax.signal import Observable, Signal, Source, Systematic
 
 
 @pytest.fixture
@@ -153,12 +153,12 @@ class TestShardedEnsembleE2E:
                          error_type="projection", confidence=0.9)
         cfg = tmp_path / "fit.json"
         cfg.write_text(json.dumps(conf))
-        from sxmc_tpu.cli import main
+        from sxmc_jax.cli import main
 
         assert main([str(cfg), str(tmp_path / "out"), "--sharded"]) == 0
         out = capsys.readouterr().out
         assert "Best fit" in out
-        assert (tmp_path / "out" / "lspace_3.hdf5").exists()
+        assert (tmp_path / "out" / "lspace_3.npz").exists()
 
 
 class TestWeightedStack:
@@ -172,7 +172,7 @@ class TestWeightedStack:
                                 ["x", "DATASET"], [obs], [], [])
         # Reweight the single high-bin sample by 2.
         sig.histogram.weights = np.array([1.0, 1.0, 2.0], np.float32)
-        from sxmc_tpu.pdf.stack import PdfStack
+        from sxmc_jax.pdf.stack import PdfStack
 
         stack = PdfStack([sig], [obs], [])
         assert stack.has_weights
@@ -189,11 +189,11 @@ class TestHMCSamplerCLI:
         conf["pdfs"]["systematics"]["radius_scale"]["fixed"] = True
         cfg = tmp_path / "fit.json"
         cfg.write_text(json.dumps(conf))
-        from sxmc_tpu.cli import main
+        from sxmc_jax.cli import main
 
         assert main([str(cfg), str(tmp_path / "out"),
                      "--sampler", "hmc"]) == 0
-        assert (tmp_path / "out" / "lspace_0.hdf5").exists()
+        assert (tmp_path / "out" / "lspace_0.npz").exists()
 
 
 class TestMLESamplerCLI:
@@ -201,7 +201,7 @@ class TestMLESamplerCLI:
         conf = config_2d(mc_2d, confidence=0.683)
         cfg = tmp_path / "fit.json"
         cfg.write_text(json.dumps(conf))
-        from sxmc_tpu.cli import main
+        from sxmc_jax.cli import main
 
         assert main([str(cfg), str(tmp_path / "out"),
                      "--sampler", "mle"]) == 0
@@ -221,8 +221,8 @@ class TestStretchSamplerCLI:
         conf = config_2d(mc_2d, nsteps=800, burnin_fraction=0.3)
         cfg = tmp_path / "fit.json"
         cfg.write_text(json.dumps(conf))
-        from sxmc_tpu.cli import main
+        from sxmc_jax.cli import main
 
         assert main([str(cfg), str(tmp_path / "out"),
                      "--sampler", "stretch"]) == 0
-        assert (tmp_path / "out" / "lspace_0.hdf5").exists()
+        assert (tmp_path / "out" / "lspace_0.npz").exists()

@@ -44,14 +44,14 @@ class TestReferenceExample:
         }"""
         path = tmp_path / "bad.json"
         path.write_text(bad)
-        from sxmc_tpu.fitconfig import load_json
+        from sxmc_jax.fitconfig import load_json
 
         with pytest.raises(json.JSONDecodeError):
             load_json(str(path))
 
     def test_repaired_example_parses_to_reference_model(
             self, example_workdir):
-        from sxmc_tpu.fitconfig import FitConfig
+        from sxmc_jax.fitconfig import FitConfig
 
         fc = FitConfig.from_json_file(
             os.path.join(REPO, "examples", "reference_example.json"),
@@ -75,8 +75,8 @@ class TestReferenceExample:
         assert fc.systematics[1].truth_field == "mc_energy"
 
     def test_repaired_example_fits(self, example_workdir, tmp_path):
-        from sxmc_tpu.ensemble import run_ensemble
-        from sxmc_tpu.fitconfig import FitConfig
+        from sxmc_jax.ensemble import run_ensemble
+        from sxmc_jax.fitconfig import FitConfig
 
         fc = FitConfig.from_json_file(
             os.path.join(REPO, "examples", "reference_example.json"),

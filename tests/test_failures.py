@@ -14,9 +14,9 @@ import os
 import numpy as np
 import pytest
 
-from sxmc_tpu import ensemble as ensemble_mod
-from sxmc_tpu.ensemble import run_ensemble
-from sxmc_tpu.fitconfig import FitConfig
+from sxmc_jax import ensemble as ensemble_mod
+from sxmc_jax.ensemble import run_ensemble
+from sxmc_jax.fitconfig import FitConfig
 
 from tests.test_config_e2e import example_config, mc_files  # noqa: F401
 
@@ -124,7 +124,7 @@ class TestTypedErrors:
         }
 
     def test_nexperiments_nsteps(self):
-        from sxmc_tpu.utils import ConfigError
+        from sxmc_jax.utils import ConfigError
 
         for key in ("nexperiments", "nsteps"):
             conf = self._minimal()
@@ -133,7 +133,7 @@ class TestTypedErrors:
                 FitConfig.from_dict(conf)
 
     def test_rate_xor_scale(self):
-        from sxmc_tpu.utils import ConfigError
+        from sxmc_jax.utils import ConfigError
 
         conf = self._minimal()
         conf["pdfs"]["observables"]["energy"] = {
@@ -150,7 +150,7 @@ class TestTypedErrors:
             FitConfig.from_dict(conf)
 
     def test_cut_duplicates_observable(self):
-        from sxmc_tpu.utils import ConfigError
+        from sxmc_jax.utils import ConfigError
 
         conf = self._minimal()
         conf["pdfs"]["observables"]["energy"] = {
@@ -162,24 +162,24 @@ class TestTypedErrors:
             FitConfig.from_dict(conf)
 
     def test_likelihood_space_shape(self):
-        from sxmc_tpu.stats.likelihood import LikelihoodSpace
-        from sxmc_tpu.utils import FitError
+        from sxmc_jax.stats.likelihood import LikelihoodSpace
+        from sxmc_jax.utils import FitError
 
         with pytest.raises(FitError, match="shapes"):
             LikelihoodSpace(np.zeros((5, 2)), np.zeros(4), ["a", "b"])
 
     def test_empty_contour(self):
-        from sxmc_tpu.stats.likelihood import LikelihoodSpace
-        from sxmc_tpu.utils import FitError
+        from sxmc_jax.stats.likelihood import LikelihoodSpace
+        from sxmc_jax.utils import FitError
 
         ls = LikelihoodSpace(np.zeros((3, 1)), np.ones(3), ["a"])
         with pytest.raises(FitError, match="dNLL"):
             ls.get_contour(0.0)
 
     def test_load_rejects_non_lspace(self, tmp_path):
-        from sxmc_tpu.io import loaders
-        from sxmc_tpu.stats.likelihood import LikelihoodSpace
-        from sxmc_tpu.utils import FitError
+        from sxmc_jax.io import loaders
+        from sxmc_jax.stats.likelihood import LikelihoodSpace
+        from sxmc_jax.utils import FitError
 
         path = str(tmp_path / "notls.npz")
         loaders.write_float_table(

@@ -4,10 +4,10 @@ import numpy as np
 import jax
 import pytest
 
-from sxmc_tpu.generator import make_fake_dataset
-from sxmc_tpu.signal import Observable, Signal, Source
-from sxmc_tpu.stats.feldman_cousins import FeldmanCousins
-from sxmc_tpu.stats.mle import MLE
+from sxmc_jax.generator import make_fake_dataset
+from sxmc_jax.signal import Observable, Signal, Source
+from sxmc_jax.stats.feldman_cousins import FeldmanCousins
+from sxmc_jax.stats.mle import MLE
 
 
 @pytest.fixture(scope="module")
@@ -29,8 +29,8 @@ def model():
 
 class TestBatchedGenerator:
     def test_matches_serial_statistics(self, model):
-        from sxmc_tpu.generator import make_fake_dataset_batch
-        from sxmc_tpu.pdf.stack import PdfStack
+        from sxmc_jax.generator import make_fake_dataset_batch
+        from sxmc_jax.pdf.stack import PdfStack
 
         obs, sources, signals = model
         stack = PdfStack(signals, [obs], [])
@@ -48,7 +48,7 @@ class TestBatchedGenerator:
         assert ((batch[..., 0] >= 5.0) & (batch[..., 0] < 15.0))[valid].all()
 
     def test_nonpoisson_counts_fixed(self, model):
-        from sxmc_tpu.generator import make_fake_dataset_batch
+        from sxmc_jax.generator import make_fake_dataset_batch
 
         obs, sources, signals = model
         batch = make_fake_dataset_batch(

@@ -10,10 +10,10 @@ import jax
 import numpy as np
 import pytest
 
-from sxmc_tpu.generator import make_fake_dataset
-from sxmc_tpu.mcmc.metropolis import MCMC
-from sxmc_tpu.signal import Observable, Signal, Source
-from sxmc_tpu.stats.diagnostics import summarize
+from sxmc_jax.generator import make_fake_dataset
+from sxmc_jax.mcmc.metropolis import MCMC
+from sxmc_jax.signal import Observable, Signal, Source
+from sxmc_jax.stats.diagnostics import summarize
 
 
 @pytest.fixture(scope="module")
@@ -95,7 +95,7 @@ class TestFullCov:
                                                       correlated_fit):
         """A burn-in phase with zero accepted moves (constant samples)
         must retune to the PREVIOUS proposal, not collapse to ~0."""
-        from sxmc_tpu.mcmc import metropolis
+        from sxmc_jax.mcmc import metropolis
 
         mcmc, _ = correlated_fit
         tril0 = metropolis._initial_scale_tril(mcmc)
@@ -112,7 +112,7 @@ class TestFullCov:
 
     def test_checkpoint_full_cov_resume(self, correlated_fit,
                                         tmp_path):
-        from sxmc_tpu import checkpoint as ckpt_mod
+        from sxmc_jax import checkpoint as ckpt_mod
 
         mcmc, data = correlated_fit
         path = str(tmp_path / "fc.ckpt.npz")

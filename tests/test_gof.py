@@ -7,9 +7,9 @@ known-good and known-bad fits.
 import jax
 import numpy as np
 
-from sxmc_tpu.generator import make_fake_dataset
-from sxmc_tpu.signal import Observable, Signal, Source, Systematic
-from sxmc_tpu.stats.gof import baker_cousins_chi2, goodness_of_fit
+from sxmc_jax.generator import make_fake_dataset
+from sxmc_jax.signal import Observable, Signal, Source, Systematic
+from sxmc_jax.stats.gof import baker_cousins_chi2, goodness_of_fit
 
 
 def make_fixture(seed=1):
@@ -76,8 +76,8 @@ class TestGoodnessOfFit:
         assert res.p_toys <= 0.01, res
 
     def test_observed_counts_match_events(self):
-        from sxmc_tpu.pdf.stack import PdfStack
-        from sxmc_tpu.stats.gof import _observed_counts
+        from sxmc_jax.pdf.stack import PdfStack
+        from sxmc_jax.stats.gof import _observed_counts
 
         obs, systs, sources, signals = make_fixture()
         data = make_fake_dataset(jax.random.PRNGKey(4), signals, systs,

@@ -40,8 +40,8 @@ FROZEN_NLL_MIN = -1712.2490234375
 
 @pytest.fixture(scope="module")
 def golden_run(tmp_path_factory):
-    from sxmc_tpu.ensemble import run_ensemble
-    from sxmc_tpu.fitconfig import FitConfig
+    from sxmc_jax.ensemble import run_ensemble
+    from sxmc_jax.fitconfig import FitConfig
 
     fc = FitConfig.from_json_file(os.path.join(GOLDEN, "config.json"),
                                   data_root=GOLDEN)
@@ -59,10 +59,10 @@ class TestGoldenEnsemble:
             np.median(FROZEN_LIMITS), rel=2e-3)
 
     def test_best_fit_and_intervals(self, golden_run):
-        from sxmc_tpu.stats.likelihood import LikelihoodSpace
+        from sxmc_jax.stats.likelihood import LikelihoodSpace
 
         _, out = golden_run
-        ls = LikelihoodSpace.load(os.path.join(out, "golden_0.hdf5"))
+        ls = LikelihoodSpace.load(os.path.join(out, "golden_0.npz"))
         bf = ls.get_best_fit()
         assert set(bf) == set(FROZEN_BEST)
         for name, (pt, lo, up) in FROZEN_BEST.items():
@@ -76,8 +76,8 @@ class TestGoldenEnsemble:
                 (name, iv.upper, up)
 
     def test_nll_min(self, golden_run):
-        from sxmc_tpu.stats.likelihood import LikelihoodSpace
+        from sxmc_jax.stats.likelihood import LikelihoodSpace
 
         _, out = golden_run
-        ls = LikelihoodSpace.load(os.path.join(out, "golden_0.hdf5"))
+        ls = LikelihoodSpace.load(os.path.join(out, "golden_0.npz"))
         assert ls.nll_min == pytest.approx(FROZEN_NLL_MIN, abs=0.5)

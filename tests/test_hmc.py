@@ -4,9 +4,9 @@ import numpy as np
 import jax
 import pytest
 
-from sxmc_tpu.generator import make_fake_dataset
-from sxmc_tpu.mcmc.hmc import HMC
-from sxmc_tpu.mcmc.metropolis import MCMC
+from sxmc_jax.generator import make_fake_dataset
+from sxmc_jax.mcmc.hmc import HMC
+from sxmc_jax.mcmc.metropolis import MCMC
 from tests.test_mcmc import make_fixture
 
 
@@ -98,7 +98,7 @@ class TestHMCBinned:
         """The recorded NLL history itself must regroup exactly: same
         params -> same NLL (to compensated-pair precision) whether
         evaluated binned or unbinned."""
-        from sxmc_tpu.mcmc.metropolis import _nll_backend
+        from sxmc_jax.mcmc.metropolis import _nll_backend
 
         obs, systs, sources, signals = make_fixture(
             with_systematic=True, seed=3)

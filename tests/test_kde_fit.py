@@ -10,12 +10,12 @@ import numpy as np
 import jax
 import pytest
 
-from sxmc_tpu.generator import make_fake_dataset
-from sxmc_tpu.mcmc.metropolis import MCMC
-from sxmc_tpu.pdf.evalkde import EvalKDE
-from sxmc_tpu.pdf.stack import PdfStack
-from sxmc_tpu.signal import Observable, Signal, Source
-from sxmc_tpu.stats.mle import MLE
+from sxmc_jax.generator import make_fake_dataset
+from sxmc_jax.mcmc.metropolis import MCMC
+from sxmc_jax.pdf.evalkde import EvalKDE
+from sxmc_jax.pdf.stack import PdfStack
+from sxmc_jax.signal import Observable, Signal, Source
+from sxmc_jax.stats.mle import MLE
 
 
 def make_kde_fixture(n_mc=4000, seed=1):
@@ -112,7 +112,7 @@ class TestKDEFit:
         assert abs(res.value("sig") - 1.0) < 0.3
 
     def test_kde_with_floating_systematic(self):
-        from sxmc_tpu.signal import Systematic
+        from sxmc_jax.signal import Systematic
 
         rng = np.random.default_rng(3)
         obs = Observable(name="energy", field="energy", bins=25,
@@ -138,7 +138,7 @@ class TestKDEFit:
         assert abs(bf["shift_0"].point_estimate) < 0.1
 
     def test_sharded_chain_rejects_kde(self):
-        from sxmc_tpu.parallel.chain_sharded import run_sharded_chain
+        from sxmc_jax.parallel.chain_sharded import run_sharded_chain
 
         obs, sources, signals = make_kde_fixture()
         data = make_fake_dataset(jax.random.PRNGKey(4), signals, [],
@@ -153,7 +153,7 @@ class TestKDEExact:
     coordinates, removing the bin-grid discretization bias entirely."""
 
     def _fixture(self, with_syst=False, n_mc=2000, seed=2):
-        from sxmc_tpu.signal import Systematic
+        from sxmc_jax.signal import Systematic
 
         rng = np.random.default_rng(seed)
         obs = Observable(name="energy", field="energy", bins=25,
@@ -253,7 +253,7 @@ class TestKDEExact:
         """
         import jax.numpy as jnp
 
-        from sxmc_tpu.mcmc.hmc import HMC, _make_hmc_fns
+        from sxmc_jax.mcmc.hmc import HMC, _make_hmc_fns
 
         obs, systs, sources, signals = self._fixture(with_syst=True)
         rng = np.random.default_rng(11)
@@ -284,10 +284,10 @@ class TestKDEExact:
         import jax
         import jax.numpy as jnp
 
-        from sxmc_tpu.fitconfig import FitConfig
-        from sxmc_tpu.generator import make_fake_dataset
-        from sxmc_tpu.mcmc import metropolis
-        from sxmc_tpu.parallel import ensemble as par_ensemble
+        from sxmc_jax.fitconfig import FitConfig
+        from sxmc_jax.generator import make_fake_dataset
+        from sxmc_jax.mcmc import metropolis
+        from sxmc_jax.parallel import ensemble as par_ensemble
 
         obs, systs, sources, signals = self._fixture()
         fc = FitConfig(
@@ -325,8 +325,8 @@ class TestKDEExact:
 
     def test_parallel_ensemble_exact_kde_checkpoint_refused(self,
                                                             tmp_path):
-        from sxmc_tpu.fitconfig import FitConfig
-        from sxmc_tpu.parallel import ensemble as par_ensemble
+        from sxmc_jax.fitconfig import FitConfig
+        from sxmc_jax.parallel import ensemble as par_ensemble
 
         obs, systs, sources, signals = self._fixture()
         fc = FitConfig(

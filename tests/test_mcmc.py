@@ -8,9 +8,9 @@ import numpy as np
 import jax
 import pytest
 
-from sxmc_tpu.generator import make_fake_dataset
-from sxmc_tpu.mcmc.metropolis import MCMC
-from sxmc_tpu.signal import Observable, Signal, Source, Systematic
+from sxmc_jax.generator import make_fake_dataset
+from sxmc_jax.mcmc.metropolis import MCMC
+from sxmc_jax.signal import Observable, Signal, Source, Systematic
 
 
 def make_fixture(with_systematic=False, seed=1):

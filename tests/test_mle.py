@@ -9,9 +9,9 @@ import numpy as np
 import jax
 import pytest
 
-from sxmc_tpu.generator import make_fake_dataset
-from sxmc_tpu.signal import Observable, Signal, Source, Systematic
-from sxmc_tpu.stats.mle import MLE
+from sxmc_jax.generator import make_fake_dataset
+from sxmc_jax.signal import Observable, Signal, Source, Systematic
+from sxmc_jax.stats.mle import MLE
 
 from test_mcmc import make_fixture
 
@@ -134,7 +134,7 @@ class TestSystProfilingAccuracy:
         profiled-NLL bias too."""
         import jax.numpy as jnp
 
-        from sxmc_tpu.stats.mle import _profile_syst_grid
+        from sxmc_jax.stats.mle import _profile_syst_grid
 
         obs, systs, sources, signals = make_fixture(
             with_systematic=True)
@@ -242,8 +242,8 @@ class TestProfile2D:
             mle.profile2d("sig", "sig", [1.0], [1.0])
 
     def test_contour_plot_writes_file(self, tmp_path):
-        from sxmc_tpu.plots import plot_profile2d
-        from sxmc_tpu.stats.mle import profile2d_contour_levels
+        from sxmc_jax.plots import plot_profile2d
+        from sxmc_jax.stats.mle import profile2d_contour_levels
 
         levels = profile2d_contour_levels((0.683, 0.95))
         assert levels[0] == pytest.approx(-np.log(1 - 0.683), abs=1e-9)

@@ -12,10 +12,10 @@ import numpy as np
 import jax
 import pytest
 
-from sxmc_tpu.fitconfig import FitConfig
-from sxmc_tpu.generator import make_fake_dataset
-from sxmc_tpu.io import loaders
-from sxmc_tpu.mcmc.metropolis import MCMC
+from sxmc_jax.fitconfig import FitConfig
+from sxmc_jax.generator import make_fake_dataset
+from sxmc_jax.io import loaders
+from sxmc_jax.mcmc.metropolis import MCMC
 
 
 @pytest.fixture
@@ -120,7 +120,7 @@ class TestMultiDataset:
         cfg = tmp_path / "fit.json"
         cfg.write_text(json.dumps(conf))
 
-        from sxmc_tpu.ensemble import main_fit
+        from sxmc_jax.ensemble import main_fit
 
         main_fit(str(cfg), str(tmp_path / "out"))
-        assert (tmp_path / "out" / "lspace_0.hdf5").exists()
+        assert (tmp_path / "out" / "lspace_0.npz").exists()

@@ -1,7 +1,7 @@
 """Multi-host (DCN) ensemble: 2-process jax.distributed CPU test.
 
 SURVEY.md section 4 calls for "multi-host tests using jax.distributed
-with a multi-process CPU mesh" — the TPU analog of the reference's CPU
+with a multi-process CPU mesh" — the analog of the reference's CPU
 fallback.  Two worker processes bring up a real jax.distributed
 runtime over a localhost coordinator, each generates/fits only its own
 half of the ensemble, the limits are all-gathered, and the result must

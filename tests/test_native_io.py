@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from sxmc_tpu.io import loaders, native
+from sxmc_jax.io import loaders, native
 
 
 pytestmark = pytest.mark.skipif(
@@ -58,7 +58,7 @@ class TestEventStore:
         np.testing.assert_array_equal(out[:, 2], 3.0)
 
     def test_select_matches_python_path(self, table):
-        from sxmc_tpu.signal import Observable, read_dataset_to_samples
+        from sxmc_jax.signal import Observable, read_dataset_to_samples
 
         path, data, fields = table
         cut = Observable(name="radius", field="radius", lower=2.0,
@@ -72,7 +72,7 @@ class TestEventStore:
         np.testing.assert_array_equal(py, cc)
 
     def test_signal_from_sxnt(self, table, tmp_path):
-        from sxmc_tpu.signal import Observable, Signal, Source
+        from sxmc_jax.signal import Observable, Signal, Source
 
         path, _, _ = table
         obs = Observable(name="energy", field="energy", bins=10,
@@ -93,8 +93,8 @@ class TestEventStore:
 
 class TestConvertCLI:
     def test_roundtrip_npz_to_sxnt(self, tmp_path, capsys):
-        from sxmc_tpu.io.convert import main
-        from sxmc_tpu.io.loaders import read_float_table
+        from sxmc_jax.io.convert import main
+        from sxmc_jax.io.loaders import read_float_table
 
         rng = np.random.default_rng(0)
         d1 = rng.normal(size=(50, 2)).astype(np.float32)
@@ -111,7 +111,7 @@ class TestConvertCLI:
                                    rtol=1e-6)
 
     def test_usage(self, capsys):
-        from sxmc_tpu.io.convert import main
+        from sxmc_jax.io.convert import main
 
         assert main([]) == 2
         assert main(["--help"]) == 0

@@ -7,7 +7,7 @@ of nll_kernels.cpp:89-188 analytically.
 import numpy as np
 import jax.numpy as jnp
 
-from sxmc_tpu.ops.nll import BARRIER, NLLStatic, nll, signal_weights
+from sxmc_jax.ops.nll import BARRIER, NLLStatic, nll, signal_weights
 
 
 def make_static(nexpected, n_mc, source_id, means, sigmas, nsources):

@@ -3,7 +3,7 @@
 The reference accumulates the event log-sum and total NLL in double
 (reference: src/nll_kernels.cpp:89-116, 149-188).  At 10^7 events the
 NLL is ~10^7, where the plain-f32 quantum (~1) exceeds the dNLL = 0.5
-interval scale; sxmc_tpu carries the sums as TwoSum (hi, lo) f32 pairs
+interval scale; sxmc_jax carries the sums as TwoSum (hi, lo) f32 pairs
 (ops/nll.py) instead.  These tests pin that behavior against host-f64
 references:
 
@@ -20,7 +20,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from sxmc_tpu.ops.nll import NLLStatic, df_diff, df_sum, nll_pair
+from sxmc_jax.ops.nll import NLLStatic, df_diff, df_sum, nll_pair
 
 N_EVENTS = 10_000_000
 

@@ -4,9 +4,9 @@ import numpy as np
 import jax
 import pytest
 
-from sxmc_tpu.generator import make_fake_dataset
-from sxmc_tpu.mcmc.metropolis import MCMC
-from sxmc_tpu.mcmc.nuts import NUTS
+from sxmc_jax.generator import make_fake_dataset
+from sxmc_jax.mcmc.metropolis import MCMC
+from sxmc_jax.mcmc.nuts import NUTS
 from tests.test_mcmc import make_fixture
 
 

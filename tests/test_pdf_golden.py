@@ -11,7 +11,7 @@ The numbers are backend-independent math and must match exactly.
 import numpy as np
 import pytest
 
-from sxmc_tpu.pdf.evalhist import EvalHist, PdfError
+from sxmc_jax.pdf.evalhist import EvalHist, PdfError
 
 
 SAMPLES = [0.1, 0.2, 0.3, 0.4, 0.5, 1.1, -0.1]

@@ -10,8 +10,8 @@ import numpy as np
 import jax
 import pytest
 
-from sxmc_tpu.fitconfig import FitConfig
-from sxmc_tpu.parallel import ensemble as par_ensemble
+from sxmc_jax.fitconfig import FitConfig
+from sxmc_jax.parallel import ensemble as par_ensemble
 from tests.test_mcmc import make_fixture
 
 

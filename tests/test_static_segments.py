@@ -14,8 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sxmc_tpu.pdf.stack import PdfStack, _stack_histograms
-from sxmc_tpu.signal import Observable, Signal, Source, Systematic
+from sxmc_jax.pdf.stack import PdfStack, _stack_histograms
+from sxmc_jax.signal import Observable, Signal, Source, Systematic
 
 FIELDS = ["energy", "DATASET"]
 
@@ -48,8 +48,8 @@ def _full_reference(stack, arrays, theta, weights=None):
         np.full(a.shape[0], i, np.int32) for i, a in enumerate(arrays)]))
     w = jnp.asarray(np.concatenate(weights)) if weights else None
     return _stack_histograms(
-        samples, seg, jnp.asarray(theta, jnp.float32), stack.lower,
-        stack.upper, stack.nbins, len(arrays), stack.systematics, w)
+        samples, seg, jnp.asarray(theta, jnp.float32), stack.lower_host,
+        stack.upper_host, stack.nbins, len(arrays), stack.systematics, w)
 
 
 @pytest.fixture
@@ -162,7 +162,7 @@ def test_syst_on_all_signals_keeps_everything_dynamic():
 def test_mcmc_fit_with_static_background():
     """End-to-end: a fit whose background PDF is static recovers rates
     identically shaped to the all-dynamic config."""
-    from sxmc_tpu.mcmc.metropolis import MCMC
+    from sxmc_jax.mcmc.metropolis import MCMC
 
     rng = np.random.default_rng(13)
     mc_sig = rng.normal(5, 1, (20000, 1)).astype(np.float32)

@@ -3,8 +3,8 @@
 import numpy as np
 import jax
 
-from sxmc_tpu.generator import make_fake_dataset
-from sxmc_tpu.mcmc.stretch import StretchSampler
+from sxmc_jax.generator import make_fake_dataset
+from sxmc_jax.mcmc.stretch import StretchSampler
 
 from test_mcmc import make_fixture
 
@@ -25,7 +25,7 @@ class TestStretch:
     def test_matches_metropolis_widths(self):
         """Stretch and Metropolis agree on the posterior width with NO
         jump-width tuning on the stretch side."""
-        from sxmc_tpu.mcmc.metropolis import MCMC
+        from sxmc_jax.mcmc.metropolis import MCMC
 
         obs, systs, sources, signals = make_fixture()
         data = make_fake_dataset(jax.random.PRNGKey(4), signals, systs,

@@ -11,10 +11,10 @@ import numpy as np
 import jax
 import pytest
 
-from sxmc_tpu.generator import make_fake_dataset, make_fake_dataset_batch
-from sxmc_tpu.signal import Observable, Signal, Source, Systematic
-from sxmc_tpu.stats.feldman_cousins import FeldmanCousins
-from sxmc_tpu.stats.mle import MLE
+from sxmc_jax.generator import make_fake_dataset, make_fake_dataset_batch
+from sxmc_jax.signal import Observable, Signal, Source, Systematic
+from sxmc_jax.stats.feldman_cousins import FeldmanCousins
+from sxmc_jax.stats.mle import MLE
 
 
 @pytest.fixture(scope="module")

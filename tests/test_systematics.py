@@ -8,10 +8,10 @@ the domain boundary.
 import numpy as np
 import pytest
 
-from sxmc_tpu.ops.transforms import (
+from sxmc_jax.ops.transforms import (
     SHIFT, SCALE, CTSCALE, RESOLUTION_SCALE, SystematicDesc,
     apply_systematics, systematic_type_from_name)
-from sxmc_tpu.pdf.evalhist import EvalHist
+from sxmc_jax.pdf.evalhist import EvalHist
 
 import jax.numpy as jnp
 

@@ -9,10 +9,10 @@ bimodal posterior that traps a single chain.
 import jax
 import numpy as np
 
-from sxmc_tpu.generator import make_fake_dataset
-from sxmc_tpu.mcmc.metropolis import MCMC
-from sxmc_tpu.mcmc.tempered import TemperedMCMC, temperature_ladder
-from sxmc_tpu.signal import Observable, Signal, Source, Systematic
+from sxmc_jax.generator import make_fake_dataset
+from sxmc_jax.mcmc.metropolis import MCMC
+from sxmc_jax.mcmc.tempered import TemperedMCMC, temperature_ladder
+from sxmc_jax.signal import Observable, Signal, Source, Systematic
 
 
 def unimodal_fixture(seed=1):
@@ -140,7 +140,7 @@ class TestTemperedBimodal:
         assert temp.last_swap_rate > 0.05
 
     def test_checkpoint_kill_and_resume(self, tmp_path):
-        from sxmc_tpu import checkpoint as ckpt_mod
+        from sxmc_jax import checkpoint as ckpt_mod
 
         obs, systs, sources, signals = unimodal_fixture()
         data = make_fake_dataset(jax.random.PRNGKey(4), signals, systs,
@@ -195,124 +195,3 @@ class TestTemperedBimodal:
         shift = np.asarray(ls.column("shift_0"))
         frac_pos = float((shift > 0).mean())
         assert frac_pos < 0.02 or frac_pos > 0.98, frac_pos
-
-
-class TestTemperedFused:
-    """Tempered ladder through the whole-segment kernel (r5): each
-    swap interval is one batched launch with per-replica beta
-    annealing the in-kernel accept."""
-
-    @staticmethod
-    def _make_data(obs, seed=0, nevents=400):
-        rng = np.random.default_rng(seed)
-        return np.stack(
-            [rng.uniform(obs.lower, obs.upper, nevents).astype(
-                np.float32),
-             np.zeros(nevents, np.float32)], axis=1)
-
-    def _interpret_tempered(self, **kw):
-        from sxmc_tpu.pdf.stack import force_pallas_interpret
-
-        obs, systs, sources, signals = unimodal_fixture()
-        data = self._make_data(obs)
-        with force_pallas_interpret():
-            t = TemperedMCMC(sources, signals, systs, [obs], **kw)
-        assert t.stack.supports_fused
-        return t, data
-
-    def test_fused_route_taken(self):
-        from sxmc_tpu.mcmc import tempered as tmod
-
-        t, data = self._interpret_tempered(ntemps=4, tmax=8.0,
-                                           swap_every=5)
-        calls = {"n": 0}
-        real = tmod._make_tempered_fused_phase
-
-        def counting(*a, **k):
-            calls["n"] += 1
-            return real(*a, **k)
-
-        tmod._make_tempered_fused_phase = counting
-        try:
-            ls = t(data, 150, burnin_fraction=0.2, seed=3)
-        finally:
-            tmod._make_tempered_fused_phase = real
-        assert calls["n"] >= 1
-        assert np.isfinite(ls.nll_values).all()
-        assert 0.0 <= t.last_swap_rate <= 1.0
-
-    def test_single_temp_fused_matches_plain_segment(self):
-        """ntemps=1 with beta=1: the tempered fused phase is the plain
-        batched whole-segment kernel (beta scaling by 1.0 is exact in
-        f32), so a plain fused_segment with the same streams matches
-        bit-for-bit."""
-        import jax.numpy as jnp
-
-        from sxmc_tpu.mcmc import metropolis
-        from sxmc_tpu.mcmc import tempered as tmod
-
-        t, data = self._interpret_tempered(ntemps=1, swap_every=5)
-        mcmc = t.mcmc
-        mcmc.stack.set_data(data)
-        rb = mcmc.stack._read_bins
-        dd = mcmc.stack.device_data
-        p0, nll0, w0 = metropolis.initial_state(mcmc, rb, dd,
-                                                allow_fused=True)
-        run_phase = tmod._make_tempered_fused_phase(
-            mcmc, rb, dd, False, (1.0,), 5)
-        params = jnp.broadcast_to(p0, (1,) + p0.shape)
-        nll = (jnp.broadcast_to(nll0[0], (1,)),
-               jnp.broadcast_to(nll0[1], (1,)))
-        width = jnp.broadcast_to(w0, (1,) + w0.shape)
-        key = jax.random.PRNGKey(9)
-        carry = (params, nll, width, jnp.int32(0))
-        # n = 10 -> two full intervals of 5 (ntemps=1: no partner, no
-        # swap effect) -> cold history must equal two plain segments
-        # with the interval key derivation.
-        carry2, (cs, cn, ca, _) = run_phase(carry, key, 10)
-
-        import numpy as np2
-        keys = jax.random.split(key, 3)
-        seg_keys = jax.vmap(jax.random.split)(keys[:2])
-        cur_p, cur_nll = params, nll
-        ref = []
-        for i in range(2):
-            # Replicate interval_xs's per-replica stream derivation.
-            ks = jax.random.split(seg_keys[i, 0], 1)
-            split = jax.vmap(lambda kk: jax.random.split(
-                kk, 10).reshape(5, 2, -1))(ks)
-            nz = jax.vmap(jax.vmap(
-                lambda kk: jax.random.normal(
-                    kk, (mcmc.nparameters,))))(split[:, :, 0])
-            uu = jax.vmap(jax.vmap(
-                lambda kk: jax.random.uniform(kk, ())))(split[:, :, 1])
-            nz = jnp.moveaxis(nz, 0, 1)
-            lu = jnp.log(jnp.moveaxis(uu, 0, 1))
-            s1, n1, a1 = mcmc.stack.fused_segment(
-                cur_p, cur_nll, width, rb, dd, nz, lu, mcmc.static,
-                False, beta=jnp.ones(1, jnp.float32))
-            ref.append(np2.asarray(s1[:, 0, :]))
-            cur_p = s1[-1]
-            cur_nll = (n1[-1, :, 0], n1[-1, :, 1])
-        ref = np2.concatenate(ref, axis=0)
-        np2.testing.assert_array_equal(np2.asarray(cs), ref)
-
-    def test_fused_posterior_matches_scan(self):
-        """Fused vs scan tempered runs agree at the posterior level
-        (measure-equivalent accept + phase-aligned swap cadence)."""
-        obs, systs, sources, signals = unimodal_fixture()
-        data = self._make_data(obs)
-        from sxmc_tpu.pdf.stack import force_pallas_interpret
-
-        with force_pallas_interpret():
-            t_f = TemperedMCMC(sources, signals, systs, [obs],
-                               ntemps=4, tmax=8.0, swap_every=5)
-        t_s = TemperedMCMC(sources, signals, systs, [obs],
-                           ntemps=4, tmax=8.0, swap_every=5)
-        ls_f = t_f(data, 800, burnin_fraction=0.25, seed=6)
-        ls_s = t_s(data, 800, burnin_fraction=0.25, seed=6)
-        for name in ("sig", "bkg"):
-            f = ls_f.column(name)
-            s = ls_s.column(name)
-            assert abs(f.mean() - s.mean()) < 4 * max(
-                s.std(), 1e-3), (name, f.mean(), s.mean())

@@ -1,7 +1,7 @@
 """Sharded toy-fit batches: exactness vs the single-device path.
 
 Runs on the virtual 8-device CPU mesh (tests/conftest.py), the same
-SPMD code a TPU pod-slice executes.
+SPMD code a multi-device mesh executes.
 """
 
 import jax
@@ -9,16 +9,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sxmc_tpu.generator import make_fake_dataset_batch
-from sxmc_tpu.parallel import mesh as mesh_lib
-from sxmc_tpu.parallel.toys_sharded import (_pad_to_devices,
+from sxmc_jax.generator import make_fake_dataset_batch
+from sxmc_jax.parallel import mesh as mesh_lib
+from sxmc_jax.parallel.toys_sharded import (_pad_to_devices,
                                             sharded_pull_batch,
                                             sharded_toy_dnll)
-from sxmc_tpu.signal import Observable, Signal, Source
-from sxmc_tpu.stats.bias import _toy_fit_batch, pull_study
-from sxmc_tpu.stats.feldman_cousins import (FeldmanCousins,
+from sxmc_jax.signal import Observable, Signal, Source
+from sxmc_jax.stats.bias import _toy_fit_batch, pull_study
+from sxmc_jax.stats.feldman_cousins import (FeldmanCousins,
                                             _toy_dnll_batch)
-from sxmc_tpu.stats.mle import MLE
+from sxmc_jax.stats.mle import MLE
 
 
 @pytest.fixture(scope="module")
